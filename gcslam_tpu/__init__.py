@@ -1,7 +1,7 @@
-"""gcslam_tpu — TPU-native Geometric Compositional SLAM.
+"""gcslam_tpu — Geometric Compositional SLAM as one jitted JAX program.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
-GC-SLAM system (see SURVEY.md): a strict, branch-free, fixed-cost
+A JAX/XLA/Pallas framework, run on NVIDIA GPUs, with the capabilities of the
+reference GC-SLAM system (see SURVEY.md): a strict, branch-free, fixed-cost
 information-geometric SLAM backend. The whole per-scan pipeline compiles to a
 single jitted fixed-shape program; hypotheses are vmapped; the map is a
 device-resident tiled atlas updated with scatter kernels; replay sweeps shard

@@ -24,7 +24,7 @@ D_DESKEW = 22
 # path for measurement tools only (tools/attribute_step spawns subprocesses
 # with them, exactly as tools/precision_compare does for the dtype) — the
 # production fail-fast still binds config values to whatever this module
-# compiled with, so a mismatched config cannot start (VERDICT r4 #8).
+# compiled with, so a mismatched config cannot start.
 # ---------------------------------------------------------------------------
 import os as _os
 
@@ -32,7 +32,7 @@ K_HYP = int(_os.environ.get("GCSLAM_K_HYP", "4"))
 if not 1 <= K_HYP <= 4:
     raise ValueError(f"GCSLAM_K_HYP must be in [1, 4], got {K_HYP}")
 HYP_WEIGHT_FLOOR = 0.01 / K_HYP  # 0.0025 at the production K_HYP=4
-# Hypothesis diversification (TPU-first redesign of the reference's K_HYP=4
+# Hypothesis diversification (a redesign of the reference's K_HYP=4
 # bit-identical copies, backend_node.py:823): each hypothesis runs a distinct
 # evidence-trust profile — (power-beta scale, map-evidence scale) — and the
 # weights update every scan from the evidence fit, so the barycenter favors
@@ -186,9 +186,9 @@ N_STENCIL_TILES = (2 * R_STENCIL_TILES_Z + 1) * hex_disk_count_xy(R_STENCIL_TILE
 
 M_TILE_VIEW = 1024
 
-# Device-resident atlas capacities (TPU design; the reference used a Python
-# dict of 50_000-slot tiles, fl_slam_poc/backend/structures/primitive_map.py:182-227.
-# Here the atlas is a fixed (MAX_TILES, M_TILE) HBM-resident SoA).
+# Device-resident atlas capacities (the reference used a Python dict of
+# 50_000-slot tiles, fl_slam_poc/backend/structures/primitive_map.py:182-227.
+# Here the atlas is a fixed (MAX_TILES, M_TILE) device-resident SoA).
 ATLAS_MAX_TILES = 128
 M_TILE = 2048
 

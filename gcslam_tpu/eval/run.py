@@ -21,8 +21,10 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
+import sys
 import time
 
 
@@ -58,7 +60,7 @@ def main(argv=None) -> dict:
     p.add_argument("--no-camera", dest="camera", action="store_false",
                    default=None,
                    help="force the camera path OFF (overrides the config; "
-                        "rehearsal attribution, VERDICT r4 #3)")
+                        "rehearsal attribution)")
     p.add_argument("--frontend-set", action="append", default=[],
                    metavar="KEY=VAL",
                    help="override a BagConfig field for bag runs (repeatable; "
@@ -79,21 +81,18 @@ def main(argv=None) -> dict:
                    help="YAML/JSON PipelineConfig file (configs/gc_default.yaml)")
     p.add_argument("--precision", default=None, choices=["f32", "f64"],
                    help="belief-algebra dtype (docs/ARCHITECTURE.md precision "
-                        "policy); f32 cuts TPU compile ~11x. Default: "
-                        "GCSLAM_BELIEF_DTYPE env else f64")
+                        "policy). Default: GCSLAM_BELIEF_DTYPE env else f64")
     args = p.parse_args(argv)
 
     if args.precision is not None:
         # The dtype binds when gcslam_tpu is first imported (which `python -m`
         # already did for the package __init__), so re-exec with the env set.
-        import sys as _sys
-
         want = "float32" if args.precision == "f32" else "float64"
         if os.environ.get("GCSLAM_BELIEF_DTYPE", "float64") != want:
             env = dict(os.environ, GCSLAM_BELIEF_DTYPE=want)
-            os.execve(_sys.executable,
-                      [_sys.executable, "-m", "gcslam_tpu.eval.run"]
-                      + [a for a in (argv or _sys.argv[1:])], env)
+            os.execve(sys.executable,
+                      [sys.executable, "-m", "gcslam_tpu.eval.run"]
+                      + [a for a in (argv or sys.argv[1:])], env)
 
     if args.cpu:
         import jax
@@ -101,23 +100,11 @@ def main(argv=None) -> dict:
         jax.config.update("jax_platforms", "cpu")
     import jax
 
-    # Persistent compilation cache (same as bench.py): the full-budget
-    # pipeline compile is minutes on a remote TPU; never pay it twice.
-    # ONLY when running as a real CLI: tests import and call main() directly,
-    # and enabling the cache process-wide from a library path made a later
-    # large compile's cache write (zstandard) segfault under end-of-suite
-    # memory pressure (VERDICT r2 weak #1). The cache is a CLI concern.
-    if os.environ.get("PYTEST_CURRENT_TEST") is None and os.environ.get(
-        "GCSLAM_JAX_CACHE_DISABLE", "0"
-    ) != "1":
-        cache_dir = os.environ.get(
-            "GCSLAM_JAX_CACHE",
-            os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__)))), ".jax_cache"),
-        )
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
+    # Persistent compilation cache (gcslam_tpu.utils.cache): the
+    # full-budget pipeline compile is never paid twice.
+    from gcslam_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import numpy as np
     import gcslam_tpu  # noqa: F401
     from gcslam_tpu.models.config import PipelineConfig
@@ -155,8 +142,6 @@ def main(argv=None) -> dict:
     write_manifest(os.path.join(out_dir, "runtime_manifest.json"), cfg)
 
     if args.bag:
-        import sys
-
         from gcslam_tpu.frontend import rosbag
 
         import dataclasses
@@ -290,12 +275,18 @@ def main(argv=None) -> dict:
             os.path.join(out_dir, "splat_export.npz"), state.atlas
         )
         metrics["n_splats"] = n_splats
+    # The dashboard's panels need matplotlib, which is optional.
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    if not have_mpl:
+        metrics["dashboard"] = "skipped: matplotlib is not installed"
+        print(f"eval.run: dashboard {metrics['dashboard']}", file=sys.stderr)
     with open(os.path.join(out_dir, "metrics.json"), "w") as f:
         json.dump(metrics, f, indent=2)
     _write_metrics_csv(os.path.join(out_dir, "metrics.csv"), metrics)
-    dashboard.build_dashboard(
-        os.path.join(out_dir, "dashboard.html"), out.tape, poses, gt_poses, metrics
-    )
+    if have_mpl:
+        dashboard.build_dashboard(
+            os.path.join(out_dir, "dashboard.html"), out.tape, poses, gt_poses, metrics
+        )
 
     # Post-run invariant audit over the emitted artifacts (the reference
     # gates its results table on an audit pytest, run_and_evaluate_gc.sh:491).

@@ -1,4 +1,4 @@
-"""Synthesize a full-length, REAL-SCHEMA Kimera-like rosbag (VERDICT r3 #4).
+"""Synthesize a full-length, REAL-SCHEMA Kimera-like rosbag.
 
 The reference's single test path replays the canonical Kimera-Multi bag
 through the full stack (tools/run_and_evaluate_gc.sh:333). That bag does not

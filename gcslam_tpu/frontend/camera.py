@@ -10,9 +10,9 @@ Covers the functionality of the reference's C++ nodes + host libraries:
     intersection) and sensors/splat_prep.py:37 (PoE fusion
     Lambda_f = Lambda_c + Lambda_l).
 
-TPU-first redesign: corner detection is HARRIS VIA CONVOLUTIONS (Sobel +
-box filters -> response map -> 3x3 max-pool NMS -> top-K), which maps onto
-the MXU/VPU, instead of CPU ORB pyramids; descriptors are replaced by the
+Array-program redesign: corner detection is HARRIS VIA CONVOLUTIONS (Sobel
++ box filters -> response map -> 3x3 max-pool NMS -> top-K), which XLA
+fuses into a few device kernels, instead of CPU ORB pyramids; descriptors are replaced by the
 vMF appearance lobe the pipeline actually consumes (the reference's ORB
 descriptors are never matched — association is geometric OT). Fixed N_FEAT
 budget with validity masks; everything jittable.

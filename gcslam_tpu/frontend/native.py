@@ -23,7 +23,7 @@ _lib: Optional[ctypes.CDLL] = None
 def _try_load() -> Optional[ctypes.CDLL]:
     global _lib
     if os.environ.get("GCSLAM_NO_NATIVE") == "1":
-        # Rehearsal attribution toggle (VERDICT r4 #3): force the pure-Python
+        # Rehearsal attribution toggle: force the pure-Python
         # decode path so native-vs-Python frontend deltas are measurable.
         return None
     if _lib is not None:

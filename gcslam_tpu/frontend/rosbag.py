@@ -327,7 +327,7 @@ class _CameraStream:
 def _find_camera_topics(raw, types, cfg: BagConfig):
     """-> (rgb_topic, rgb_is_compressed, depth_topic). Raises when
     with_camera is set but the bag carries no usable camera streams — the
-    dead-path-by-silence failure mode is forbidden (VERDICT r1 missing #2)."""
+    dead-path-by-silence failure mode is forbidden."""
     rgb_topic, rgb_compressed = cfg.rgb_topic, None
     if rgb_topic is not None:
         rgb_compressed = "CompressedImage" in types.get(rgb_topic, "")

@@ -108,7 +108,7 @@ def allocate_tiles(
     # just claimed) only involves the two SMALL directory arrays; content
     # clearing is hoisted out of the loop into one batched masked update —
     # this removed a per-iteration lax.cond over 16 full-atlas writes that
-    # dominated compile time (VERDICT r1 weak #2).
+    # dominated compile time.
     def body(i, carry):
         tile_ids, last_active, slots, was_new = carry
         qid = query_ids[i]
@@ -136,8 +136,8 @@ def allocate_tiles(
     # Newly-claimed slots get their content cleared by a SLOT-ROW scatter
     # (S rows), not a full-atlas where-pass: the previous clear_mask/where
     # formulation read+wrote every (T, M, ...) array each scan — one of the
-    # O(T*M) passes behind the 15 ms atlas-size-proportional cost in
-    # ATTRIB_r04. Rows for already-present tiles point out of bounds (T) and
+    # O(T*M) passes that made the per-scan cost grow with total atlas size.
+    # Rows for already-present tiles point out of bounds (T) and
     # are dropped; duplicate targets cannot occur (distinct new queries claim
     # distinct victims — claiming bumps last_active, so the next argmin moves).
     clear_slots = jnp.where(was_new, slots, jnp.int32(T))
@@ -166,20 +166,6 @@ def allocate_tiles(
         rgb=zc(atlas.rgb, fill=0.5),
     )
     return atlas, slots
-
-
-def _select_top(score, k: int, cfg) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Top-k for the map update's BUDGET-HEURISTIC selections (view rows,
-    merge candidates, insert proposals, eviction ranking). lax.top_k lowers
-    to a wide-axis sort on TPU — these four (7, 1536..2048) sorts were a
-    measurable slice of the 36 sort ops in the compiled scan body; with
-    cfg.select_recall in (0, 1) they run as approx_max_k (PartialReduce)
-    instead. Each call site is already a declared fixed-budget heuristic
-    (approx_selection trigger raised scan-wide); 1.0 = exact."""
-    r = getattr(cfg, "select_recall", 1.0)
-    if 0.0 < r < 1.0 and k < score.shape[-1]:
-        return jax.lax.approx_max_k(score, k, recall_target=float(r))
-    return jax.lax.top_k(score, k)
 
 
 # ---------------------------------------------------------------------------
@@ -243,9 +229,8 @@ def extract_view(
     pid = atlas.primitive_ids[tile_slots]
     score = jnp.where(valid, w, -jnp.inf)
     # top-V by weight; ties break by lowest index (slot order), matching the
-    # reference's deterministic ordering intent (approx backend per
-    # _select_top when cfg.select_recall < 1).
-    _, top_slots = _select_top(score, V, cfg)  # (S, V)
+    # reference's deterministic ordering intent.
+    _, top_slots = jax.lax.top_k(score, V)  # (S, V)
 
     Lam = jnp.take_along_axis(atlas.Lambdas[tile_slots], top_slots[:, :, None, None], axis=1)
     th = jnp.take_along_axis(atlas.thetas[tile_slots], top_slots[:, :, None], axis=1)
@@ -328,11 +313,6 @@ def build_measurement_inputs(
         cfg.n_surfel, cfg.surfel_voxel_size_m, cfg.surfel_min_points_per_voxel,
         sensor_var=sensor_var,
     )
-    if 0.0 < getattr(cfg, "select_recall", 1.0) < 1.0:
-        # the map update's budget selections run approximate this scan
-        surf_cert = surf_cert._replace(
-            triggers=surf_cert.triggers | jnp.uint64(TRIGGERS["approx_selection"])
-        )
     if cfg.with_camera:
         cam = (batch_in.cam_Lambdas, batch_in.cam_thetas, batch_in.cam_etas,
                batch_in.cam_weights, batch_in.cam_colors, batch_in.cam_valid)
@@ -404,9 +384,8 @@ def map_gn_evidence(mbatch, shortlist, surf_cert, atlas_view: AtlasView,
     Rolled as ONE lax.scan over a static anneal schedule: every round
     has identical structure (association + evidence + trust-region
     step, the step zeroed on the final round), so XLA compiles the
-    round body ONCE instead of n_rounds statically-unrolled copies —
-    the unrolled second round alone cost ~266 s of TPU compile
-    (VERDICT r1 weak #2). The RETURNED factor is the final round's,
+    round body ONCE instead of n_rounds statically-unrolled copies
+    (unrolling multiplied the compile time). The RETURNED factor is the final round's,
     linearized at the final z; scan_step shifts it into chart
     coordinates using that same z (returned in MapExtras).
 
@@ -525,8 +504,8 @@ class _Slab(NamedTuple):
 
     MAP-STAGE COLLAPSE (round 5): fuse/insert/cull/merge each used to
     gather their own slab from the (T, M) atlas and scatter it straight
-    back — 4 gather+scatter rounds of ~15 channels, which the TPU HLO
-    showed as ~9 copies of the (7, 2048, 3, 3) Lambda slab alone
+    back — 4 gather+scatter rounds of ~15 channels, which the optimized
+    HLO showed as ~9 copies of the (7, 2048, 3, 3) Lambda slab alone
     (~27 MB of copies per scan, tools/hlo_census). map_update_step now
     gathers ONCE, chains the four stages slab-to-slab (pure elementwise /
     in-slab scatters), and scatters ONCE."""
@@ -576,9 +555,9 @@ def _fuse_slab(slab: _Slab, view: AtlasView, extras: MapExtras,
 
     SLAB LAYOUT: the accumulator and every read-modify-write run over the
     (S_active, M) slab of stencil tiles, not the full (T, M) atlas — the
-    previous full-atlas accumulator + per-array adds/wheres were ~15 ms/scan
-    of pure T*M-proportional HBM traffic (ATTRIB_r04: tiles_32 -11.5 ms,
-    m_tile_1024 -7.9 ms). Pool row p sits at stencil position p // m_tile_view
+    previous full-atlas accumulator + per-array adds/wheres were pure
+    T*M-proportional memory traffic, most of the scan's cost at production
+    atlas sizes. Pool row p sits at stencil position p // m_tile_view
     by construction (extract_view stitches tiles in active_slots order), so
     the pool -> slab mapping needs no table lookup."""
     S, M = slab.weights.shape
@@ -606,10 +585,10 @@ def _fuse_slab(slab: _Slab, view: AtlasView, extras: MapExtras,
     is_cam = rep((extras.batch.sources == 0)).astype(MAPF)
     is_lid = rep((extras.batch.sources == 1)).astype(MAPF)
 
-    # ONE packed scatter-add for every fused channel. XLA TPU serializes
-    # duplicate-index scatters over UPDATE ROWS, so nine narrow scatters
-    # sharing this index set cost ~9x one wide scatter of the concatenated
-    # payload (channel widths: Lambda 9, theta 3, eta B*3, w 1, cam 1,
+    # ONE packed scatter-add for every fused channel: nine narrow scatters
+    # sharing this index set would each walk the same update rows (nine
+    # kernels, nine index passes) where one wide scatter of the
+    # concatenated payload walks them once (channel widths: Lambda 9, theta 3, eta B*3, w 1, cam 1,
     # lidar 1, rgb_accum 3, [rgb_denom == cam], resp 1).
     NB = C.VMF_N_LOBES * 3
     rw = resp * w_m
@@ -710,18 +689,17 @@ def _insert_slab(slab: _Slab, next_global_id, extras: MapExtras, mu_w,
     # f32, carried non-finite positions into the atlas.
     in_tile = meas_tile_ids[None, :] == active_ids[:, None]  # (A, N)
     score_t = jnp.where(in_tile, score[None, :], -1e30)
-    top_score, top_idx = _select_top(score_t, Kin, cfg)  # (A, Kin)
+    top_score, top_idx = jax.lax.top_k(score_t, Kin)  # (A, Kin)
     do_insert = top_score > 0.0  # in-tile & valid & positive novelty mass
 
     # Eviction targets: Kin lowest-retention slots per tile (invalid first).
     dt = jnp.maximum(0, scan_seq.astype(jnp.int32) - slab.last_supported)
     decay = jnp.exp(-cfg.recency_decay_lambda * dt.astype(MAPF))
     retention = slab.weights * decay
-    # -inf (not inf after negation) keeps approx_max_k's reduction happy:
     # invalid slots rank FIRST for eviction via a large finite bonus.
     retention = jnp.where(slab.valid, retention, -jnp.inf)
     evict_rank = jnp.where(jnp.isfinite(retention), -retention, 1e30)
-    _, evict_slots = _select_top(evict_rank, Kin, cfg)  # (A, Kin) lowest retention
+    _, evict_slots = jax.lax.top_k(evict_rank, Kin)  # (A, Kin) lowest retention
 
     # Gather proposal payloads.
     w_new = (novelty * b.weights)[...]
@@ -758,8 +736,8 @@ def _insert_slab(slab: _Slab, next_global_id, extras: MapExtras, mu_w,
     rgb_new = jnp.where((has_cam > 0)[:, None], jnp.clip(col_i, 0.0, 1.0), 0.5)
 
     # THREE packed scatters (f32 payload / f64 payload / written-mask) replace
-    # 15 narrow scatter-sets sharing this index set — XLA TPU serializes
-    # scatters over update rows, so cost scales with scatter COUNT x rows.
+    # 15 narrow scatter-sets sharing this index set — each scatter walks
+    # the update rows again, so cost scales with scatter COUNT x rows.
     # Valid `flat` targets are unique (per-tile evict slots are distinct,
     # tiles disjoint); invalid rows target A*M — POSITIVE out-of-bounds,
     # really dropped (a -1 sentinel wraps to the last slot even under
@@ -789,8 +767,8 @@ def _insert_slab(slab: _Slab, next_global_id, extras: MapExtras, mu_w,
         axis=1,
     )  # (A*Kin, 4): timestamp, created, scan_seq (last_supported==last_update), id
     # Slab accumulators: (A*M, .) — the full-atlas (T*M, .) accumulators +
-    # per-array where-passes here were the other half of the 15 ms
-    # T*M-proportional cost (ATTRIB_r04). Each channel gathers its S-row
+    # per-array where-passes here were the other half of that
+    # T*M-proportional cost. Each channel gathers its S-row
     # slab, takes written rows from the payload, and scatter-SETs back.
     acc32 = (
         jnp.zeros((A * M, pay32.shape[1]), dtype=MAPF).at[flat].set(pay32, mode="drop")
@@ -925,8 +903,7 @@ def _merge_reduce_slab(slab: _Slab, cfg: PipelineConfig):
 
     # SLAB LAYOUT (same rationale as _fuse/_insert): all reads and the
     # merge apply operate on the (A, M) stencil slab; map_update_step owns
-    # the single gather/scatter round (ATTRIB r4 mid-round: no_merge
-    # -5.1 ms with residual tiles_32 dependence before this).
+    # the single gather/scatter round.
     w_slab = slab.weights  # (A, M)
     v_slab = slab.valid
     Lam_slab = slab.Lambdas
@@ -939,7 +916,7 @@ def _merge_reduce_slab(slab: _Slab, cfg: PipelineConfig):
     rgb_slab = slab.rgb
     ls_slab = slab.last_supported
     score = jnp.where(v_slab, w_slab, -jnp.inf)
-    _, cand = _select_top(score, V, cfg)  # (A, V)
+    _, cand = jax.lax.top_k(score, V)  # (A, V)
 
     def per_tile(Lam_t, th_t, w_t, v_t, cand_slots):
         Lam = jnp.take(Lam_t, cand_slots, axis=0).astype(f64)
@@ -958,9 +935,9 @@ def _merge_reduce_slab(slab: _Slab, cfg: PipelineConfig):
         iu = jnp.triu_indices(V, k=1)
         upper_ok = jnp.zeros((V, V), dtype=bool).at[iu].set(True)
         d2 = jnp.where(pair_ok & upper_ok, d2, jnp.inf)
-        # blocked exact top-k: a flat top_k over V*V (=16k) lowers to one
-        # wide sort per tile on TPU; the two-level reduction is identical
-        # in value and tie-break (association._topk_blocked docstring)
+        # blocked exact top-k over the V*V (=16k) pair scores: identical
+        # in value and tie-break to a flat top_k
+        # (association._topk_blocked docstring)
         from gcslam_tpu.ops.association import _topk_blocked
 
         _, pflat = _topk_blocked(-d2.reshape(-1), KC)  # (KC,) flat pair ids
@@ -1010,8 +987,7 @@ def _merge_reduce_slab(slab: _Slab, cfg: PipelineConfig):
     # Pairs are greedily DISJOINT within a tile and tiles occupy distinct
     # slots, so every write below is disjoint — the whole apply is a handful
     # of batched drop-mode scatters. (This replaced a fori_loop of A*Kp
-    # lax.conds over full-atlas updates that dominated compile time,
-    # VERDICT r1 weak #2.)
+    # lax.conds over full-atlas updates that dominated compile time.)
     M = Mfull
     ok = sel_i >= 0  # (A, Kp)
     ii = jnp.maximum(sel_i, 0)
@@ -1083,7 +1059,7 @@ def _merge_reduce_slab(slab: _Slab, cfg: PipelineConfig):
         # Refresh the canonical color for winner rows NOW: the old full-atlas
         # rgb recompute in _fuse healed merged colors the next scan, but the
         # slab refactor only touches active tiles — a tile merged on its last
-        # active scan would export a stale pre-merge color (ADVICE r4).
+        # active scan would export a stale pre-merge color.
         rgb=supd(
             rgb_slab,
             fi,
@@ -1124,8 +1100,8 @@ def map_update_step(
 
     # MAP-STAGE COLLAPSE: one slab gather, the four stages chained
     # slab-to-slab, one scatter — instead of 4 gather+scatter rounds of
-    # ~15 (A, M, ...) channels each (the TPU HLO showed ~9 copies of the
-    # Lambda slab alone before this; tools/hlo_census).
+    # ~15 (A, M, ...) channels each (the optimized HLO showed ~9 copies of
+    # the Lambda slab alone before this; tools/hlo_census).
     slab = _gather_slab(atlas, active_slots)
     slab, fused_mass = _fuse_slab(
         slab, view, extras, Lam_w, th_w, eta_w, scan_seq, timestamp, cfg
@@ -1139,9 +1115,8 @@ def map_update_step(
     if cfg.k_merge_pairs_tile <= 0:
         n_merged = jnp.zeros((), dtype=jnp.int32)
     elif merge_every > 1:
-        # Merge cadence (round-5 op-count campaign): merge-reduce is the
-        # single most expensive map stage (ATTRIB_r05: 2.07 ms of 11.5),
-        # and its effect is maintenance, not estimation — pairs that become
+        # Merge cadence: merge-reduce is the heaviest map stage, and its
+        # effect is maintenance, not estimation — pairs that become
         # eligible stay eligible. Running it every K-th scan amortizes the
         # cost ~K-fold; the off-scan branch is an identity cond. Declared
         # budgeting approximation (merge_reduce trigger fires on merge

@@ -81,16 +81,12 @@ class PipelineConfig:
     k_insert_tile: int = C.K_INSERT_TILE
     k_merge_pairs_tile: int = C.K_MERGE_PAIRS_PER_TILE
     # Merge-reduce cadence: run the merge stage every K-th scan (1 = every
-    # scan, reference behavior). Merge is the single most expensive map
-    # stage (ATTRIB_r05: 2.07 ms of 11.5 ms/scan) and its effect is
-    # maintenance. Measured on the 50-scan production bench world (TPU):
-    #   K=1: 12.3 ms, ATE rot 0.227 deg
-    #   K=2: 11.1 ms, 0.504 deg   <- default: under the reference parity
-    #                                bar (0.65 deg, BASELINE.md) at -1.2 ms
-    #   K=4: 10.5 ms, 0.778 deg
-    # The rot sensitivity shows merge's moment-matched averaging also acts
-    # as map smoothing, not just compaction. Declared budgeting
-    # approximation; set 1 for maximum-accuracy replays.
+    # scan, reference behavior). Merge is the map update's heaviest stage
+    # and its effect is maintenance. On the 50-scan production bench world
+    # ATE rot grows with K, and K=2 stayed under the reference parity bar
+    # (0.65 deg, BASELINE.md): merge's moment-matched averaging also acts as
+    # map smoothing, not just compaction. Declared budgeting approximation;
+    # set 1 for maximum-accuracy replays.
     merge_every: int = 2
     merge_threshold: float = C.PRIMITIVE_MERGE_THRESHOLD
     cull_weight_threshold: float = C.PRIMITIVE_CULL_WEIGHT_THRESHOLD
@@ -112,7 +108,7 @@ class PipelineConfig:
     # hypothesis by squared distance over the stencil pool; the full vMF
     # cost + Sinkhorn + top-k_assoc then run on (N, k_shortlist) instead of
     # (N, P) per GN round. 0 = score the whole pool every round (the
-    # round-2 behavior). This is the TPU analog of the reference's
+    # round-2 behavior). This is the array-program analog of the reference's
     # per-measurement hex-stencil candidate restriction
     # (primitive_association.py:307-365) — a certified budgeting
     # approximation (final top-k_assoc is by full cost WITHIN the
@@ -124,29 +120,11 @@ class PipelineConfig:
     # covering GN pose motion between the shortlist linearization point and
     # later rounds (trust-region caps steps at 2*sqrt(ot_epsilon) each).
     shortlist_margin_m: float = 1.0
-    # Shortlist selection backend: recall target in (0, 1) uses the
-    # TPU-native approximate top-k (jax.lax.approx_max_k / PartialReduce —
-    # avoids lowering the (N, P) selection to a wide-axis sort); 1.0 = exact
-    # blocked top-k. The shortlist carries the shortlist_pruning certificate
-    # trigger either way, and the final k_assoc downselect is exact.
-    shortlist_recall: float = 0.95
-    # Budget-selection backend for the map update's per-tile top-k choices
-    # (view extraction by weight, merge candidates by weight, insert
-    # proposals by novelty score, eviction by lowest retention): recall in
-    # (0, 1) uses approx_max_k (PartialReduce) instead of the wide-axis sort
-    # lax.top_k lowers to on TPU — these four (7, 1536..2048) sorts were
-    # ~4 of the 36 sort ops in the compiled scan body. Every one of these
-    # selections is ALREADY a declared fixed-budget heuristic (which slots
-    # the view exposes / which near-dead slot gets evicted); the approx
-    # backend stays within that contract and raises the approx_selection
-    # trigger. 1.0 = exact (CPU default behavior is exact either way).
-    select_recall: float = 0.95
-    # Sinkhorn execution backend: "auto" runs the fused Pallas kernel on TPU
-    # (the whole fixed-K iteration in ONE dispatch — the XLA lowering is
-    # ~6 tiny serial ops per iteration x k_sinkhorn x GN rounds of pure
-    # launch latency; ops/sinkhorn_pallas.py) and the XLA loop elsewhere;
-    # "xla"/"pallas" force a backend (pallas off-TPU runs interpreted —
-    # tests use it for equivalence checks).
+    # Sinkhorn execution backend: "auto" runs the fused kernel
+    # (ops/sinkhorn_pallas.py: the whole fixed-K iteration in ONE program
+    # instead of a few tiny launches per iteration) on the GPU in float32,
+    # and the XLA loop in float64 or on the CPU; "xla"/"pallas" force one
+    # ("pallas" where it cannot run is an error, not an interpretation).
     sinkhorn_backend: str = "auto"
     # Share surfel extraction + the distance shortlist across the K_HYP
     # vmapped hypotheses (computed once from hypothesis 0's deskew at its
@@ -200,8 +178,8 @@ class PipelineConfig:
     # Matrix-Fisher rotation scatter and the normal-consistency weight.
     # Camera splats' vMF lobe is the VIEWING RAY — viewpoint-dependent, so
     # matching the map's stored ray against the current ray reads
-    # translation parallax as body rotation (measured 30x ATE-rot blowup
-    # with camera on, BENCH_r04). Camera splats still contribute rotation
+    # translation parallax as body rotation (measured as a ~30x ATE-rot
+    # blowup with the camera on). Camera splats still contribute rotation
     # information through the lever-arm coupling of the 6x6 pose Laplace,
     # which models the translation-rotation geometry exactly.
     pose_rot_scatter_surfels_only: bool = True
@@ -301,8 +279,6 @@ PARAM_RANGES = [
     ("ot_cost_beta", 0.0, 1e6),
     ("k_shortlist", 0, 65536),
     ("shortlist_margin_m", 0.0, 100.0),
-    ("shortlist_recall", 0.0, 1.0),
-    ("select_recall", 0.0, 1.0),
     ("surfel_voxel_size_m", 1e-3, 10.0),
     ("surfel_min_points_per_voxel", 1, 1024),
     ("map_evidence_scale", 0.0, 1e3),
@@ -318,7 +294,7 @@ PARAM_RANGES = [
 PARAM_ENUMS = [
     ("imu_mode", ("predict", "evidence")),
     ("odom_pose_mode", ("absolute", "relative")),
-    ("sinkhorn_backend", ("auto", "xla", "pallas")),
+    ("sinkhorn_backend", ("auto", "xla", "pallas")),  # sinkhorn_pallas.BACKENDS
     ("pose_modality_mode", ("cam_to_lidar", "matched")),
 ]
 

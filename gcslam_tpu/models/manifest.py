@@ -13,7 +13,7 @@ from gcslam_tpu import constants as C
 from gcslam_tpu.models.config import PipelineConfig
 
 BACKENDS = {
-    "core_array": "jax (single jitted scan_step; XLA on TPU)",
+    "core_array": "jax (single jitted scan_step; XLA)",
     "se3": "gcslam_tpu.ops.se3 (batched, atan2 log, symmetric near-pi axis)",
     "domain_projection_psd": "gcslam_tpu.ops.linalg.domain_projection_psd",
     "lifted_spd_solve": "gcslam_tpu.ops.linalg.spd_solve_lifted",
@@ -29,13 +29,20 @@ BACKENDS = {
     "association": "gcslam_tpu.ops.association (full-pool cost + unbalanced Sinkhorn)",
     "hypothesis_barycenter": "gcslam_tpu.ops.hypothesis (vmapped info barycenter)",
     "map_backend": "gcslam_tpu.models.atlas (device-resident tiled SoA)",
-    "sinkhorn_backend": "unbalanced_fixed_k",
+    "sinkhorn": "unbalanced_fixed_k",
     "frontend": "gcslam_tpu.frontend (offline bag reader / synthetic rig)",
 }
 
 
 def runtime_manifest(cfg: PipelineConfig) -> Dict[str, Any]:
+    import jax
+    from gcslam_tpu.ops.sinkhorn_pallas import resolve_backend
     from gcslam_tpu.utils.xla import BELIEF_DTYPE, POINT_DTYPE, TIME_DTYPE, jnp
+
+    backends = dict(BACKENDS)
+    # the backend this process runs (config "auto" resolved on this device)
+    backends["sinkhorn_backend"] = resolve_backend(
+        cfg.sinkhorn_backend, jax.default_backend(), BELIEF_DTYPE)
 
     m: Dict[str, Any] = {
         "chart_id": C.CHART_ID,
@@ -52,7 +59,7 @@ def runtime_manifest(cfg: PipelineConfig) -> Dict[str, Any]:
         "N_STENCIL_TILES": C.N_STENCIL_TILES,
         "pose_evidence_backend": C.POSE_EVIDENCE_BACKEND,
         "map_backend": C.MAP_BACKEND,
-        "backends": dict(BACKENDS),
+        "backends": backends,
         "gravity_w": list(C.GRAVITY_W),
         "iw_rho_process": [C.IW_RHO_TRANS, C.IW_RHO_ROT, C.IW_RHO_VEL, C.IW_RHO_BG,
                            C.IW_RHO_BA, C.IW_RHO_DT, C.IW_RHO_EX],

@@ -11,9 +11,8 @@ Parity map (reference operators/primitive_association.py:105-553):
     convergence check); responsibilities = pi directly (NO row
     normalization — row_masses carry novelty semantics, spec 5.7.3).
 
-TPU-first deviation: candidates are scored against the WHOLE stencil pool
-(N x S*M_VIEW cost tile — one big fused elementwise+reduce, MXU/VPU friendly)
-instead of the reference's per-measurement hex-stencil re-lookup; the stencil
+Array-program deviation: candidates are scored against the WHOLE stencil
+pool (N x S*M_VIEW cost tile — one big fused elementwise+reduce) instead of the reference's per-measurement hex-stencil re-lookup; the stencil
 restriction is recovered by the distance term itself (candidates outside the
 measurement's neighborhood lose by cost). Pool rows are masked by validity.
 """
@@ -26,6 +25,7 @@ from gcslam_tpu.utils.xla import jax, jnp, BELIEF_DTYPE, POINT_DTYPE
 from gcslam_tpu import constants as C
 from gcslam_tpu.models.batch import MeasurementBatch, mean_positions, mean_directions, kappas
 from gcslam_tpu.ops.certs import Cert, make_cert, TRIGGERS
+from gcslam_tpu.ops.sinkhorn_pallas import resolve_backend, sinkhorn_unbalanced_pallas
 
 
 class AssociationResult(NamedTuple):
@@ -48,8 +48,7 @@ class CandidateSet(NamedTuple):
     therefore every per-candidate attribute — are fixed across rounds; only
     the measurement-side transport (pose) changes. Gathering (N, Ks) rows
     from the (P,) pool inside the round body made the random-access gathers
-    the dominant per-round cost on TPU (segment timing r4: GN rounds ~4 ms
-    of a 10.9 ms scan). `pos/dirs/weights` keep the view dtype (f64-clean in
+    the dominant per-round cost. `pos/dirs/weights` keep the view dtype (f64-clean in
     reference-precision mode); the cost-only channels are POINT_DTYPE."""
 
     idx: jnp.ndarray  # (N, Ks) int32 pool rows
@@ -102,9 +101,9 @@ def _log_A_vmf(k: jnp.ndarray, eps: float = 1e-12) -> jnp.ndarray:
 def _topk_blocked(x: jnp.ndarray, k: int, block: int = 512):
     """Exact top-k over the last axis via two-level reduction.
 
-    TPU's generic top_k over a wide axis lowers to an expensive wide sort;
-    splitting into `block`-wide chunks (top-k per chunk, then top-k over the
-    chunk winners) gives identical values. Tie handling matches lax.top_k's
+    Splitting a wide axis into `block`-wide chunks (top-k per chunk, then
+    top-k over the chunk winners) gives values identical to one wide top_k
+    while every selection stays narrow. Tie handling matches lax.top_k's
     lowest-index-wins: chunk winners are ordered (chunk, within-chunk), so
     the global lowest index wins exact ties."""
     *lead, P = x.shape
@@ -151,17 +150,7 @@ def shortlist_candidates(
     ok = view.valid[None, :] & meas_valid[:, None] & (d < reach * reach)
     d = jnp.where(ok, d, jnp.inf)
     k = min(cfg.k_shortlist, d.shape[-1])
-    recall = getattr(cfg, "shortlist_recall", 1.0)
-    if 0.0 < recall < 1.0:
-        # TPU-native approximate selection (PartialReduce) instead of the
-        # wide-axis sort: the shortlist is ALREADY a declared budgeting
-        # approximation (shortlist_pruning cert trigger) with a distance
-        # margin, so a >=recall fraction of the true nearest candidates is
-        # within its contract; the final k_assoc downselect inside the GN
-        # rounds stays exact. Falls back to exact top_k on CPU.
-        _, idx = jax.lax.approx_max_k(-d, k, recall_target=float(recall))
-    else:
-        _, idx = _topk_blocked(-d, k)
+    _, idx = _topk_blocked(-d, k)
     return idx.astype(jnp.int32)
 
 
@@ -180,8 +169,8 @@ def _sinkhorn_unbalanced(C_mat, a, b, epsilon, tau_a, tau_b, n_iters: int):
     u0 = jnp.ones_like(a)
     v0 = jnp.ones_like(b)
     # unroll: the body is a pair of tiny (N,K) matvec updates — while-loop
-    # boundary overhead dominates the math on TPU, so run several exact
-    # iterations per loop trip (same fixed K total, contract unchanged).
+    # boundary overhead dominates the math, so run several exact iterations
+    # per loop trip (same fixed K total, contract unchanged).
     u, v = jax.lax.fori_loop(0, n_iters, it, (u0, v0), unroll=10)
     return u[:, None] * K_mat * v[None, :]
 
@@ -316,30 +305,11 @@ def associate_primitives_ot(
     a = valid_f / sum_a
     b = jnp.full((K,), 1.0 / K, dtype=f)
 
-    backend = getattr(cfg, "sinkhorn_backend", "xla")
-    if backend == "auto":
-        try:
-            backend = "pallas" if jax.devices()[0].platform == "tpu" else "xla"
-        except Exception:
-            backend = "xla"
-        # The Pallas kernel computes in f32 (VMEM tiles); under the
-        # reference-parity f64 belief dtype that would silently downgrade
-        # Sinkhorn precision (ADVICE r4) — keep the XLA loop, which runs
-        # in the input dtype.
-        if jnp.dtype(cost_n.dtype) == jnp.dtype(jnp.float64):
-            backend = "xla"
-    if backend == "pallas":
-        from gcslam_tpu.ops.sinkhorn_pallas import sinkhorn_unbalanced_pallas
-
-        interpret = jax.devices()[0].platform != "tpu"
-        pi = sinkhorn_unbalanced_pallas(
-            cost_n, a, b, cfg.ot_epsilon, cfg.ot_tau_a, cfg.ot_tau_b,
-            cfg.k_sinkhorn, interpret=interpret,
-        )
-    else:
-        pi = _sinkhorn_unbalanced(
-            cost_n, a, b, cfg.ot_epsilon, cfg.ot_tau_a, cfg.ot_tau_b, cfg.k_sinkhorn
-        )
+    backend = resolve_backend(cfg.sinkhorn_backend, jax.default_backend(), cost_n.dtype)
+    sinkhorn = sinkhorn_unbalanced_pallas if backend == "pallas" else _sinkhorn_unbalanced
+    pi = sinkhorn(
+        cost_n, a, b, cfg.ot_epsilon, cfg.ot_tau_a, cfg.ot_tau_b, cfg.k_sinkhorn
+    )
     pi = pi * cand_valid.astype(f)
     row_masses = jnp.sum(pi, axis=1)
 

@@ -1,21 +1,16 @@
-"""Duplicate-index accumulation primitives (the TPU-native scatter story).
+"""Duplicate-index accumulation primitives.
 
 Every map-side accumulation in the pipeline is the same shape of problem:
 `acc[idx[i]] += payload[i]` with DUPLICATE indices (surfel moments into hash
-cells, association-weighted fuse into atlas slots). XLA TPU lowers a
-duplicate-index scatter-add to a serialized per-update loop, so its cost is
-~(update rows x scatter calls) regardless of payload width — the pipeline
-therefore (a) packs all channels of one accumulation into ONE wide payload
-(models/atlas._fuse, ops/surfels), and (b) can route the accumulation
-through a sort + segmented-sum + unique-index scatter, which replaces the
-serialized loop with a bitonic sort (log^2 passes, VPU-parallel), a cumsum,
-and a parallelizable unique-index scatter.
+cells, association-weighted fuse into atlas slots). Two strategies: a plain
+scatter-add ("scatter", the default everywhere; atomics on the GPU), or a
+sort + segmented-sum + unique-index scatter ("sort"), which needs no
+duplicate-index updates at all.
 
 Numerical note: the two methods sum identical terms per bin in different
 ORDERS (index order vs sorted order) — bit-identical in exact arithmetic,
-within-rounding in f32. The method is fixed per backend via
-GCSLAM_SCATTER_METHOD (default: "sort" on tpu-like backends, "scatter" on
-cpu) so any one program is deterministic.
+within-rounding in f32. GCSLAM_SCATTER_METHOD=scatter|sort picks one for the
+whole process ("auto" = scatter).
 
 Reference parity: the reference accumulates the same sums with Python loops
 over association blocks / numpy bincount (operators/lidar_surfel_extraction.py,
@@ -36,13 +31,7 @@ def _method() -> str:
 
 def _resolved_method() -> str:
     m = _method()
-    if m != "auto":
-        return m
-    try:
-        plat = jax.default_backend()
-    except Exception:
-        plat = "cpu"
-    return "scatter" if plat == "cpu" else "sort"
+    return "scatter" if m == "auto" else m
 
 
 def scatter_accumulate(

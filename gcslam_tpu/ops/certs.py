@@ -62,7 +62,6 @@ TRIGGER_NAMES = [
     "NonFiniteEvidence",
     "shortlist_pruning",
     "hyp_shared_extraction",
-    "approx_selection",
 ]
 TRIGGERS = {name: 1 << i for i, name in enumerate(TRIGGER_NAMES)}
 

@@ -4,7 +4,7 @@ p_end = Exp(xi)^{-1} Exp(alpha * xi) ⊙ p per point.
 Reference operators/deskew_constant_twist.py:32-117. alpha is the per-point
 phase in the scan window (no hard clipping — soft time-membership weights
 handle the boundary). The warp runs in POINT_DTYPE (f32): 8192 points of
-small trig — pure VPU work that XLA fuses into one kernel.
+small trig — elementwise work that XLA fuses into one kernel.
 
 Frame convention (deviation, correctness): with X(alpha) = X_start Exp(alpha
 xi), a point measured at phase alpha satisfies p_world = X(alpha) ⊙ p, so the

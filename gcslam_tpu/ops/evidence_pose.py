@@ -78,9 +78,9 @@ def primitive_pose_evidence(
     Lam_b = Lam_b * jnp.minimum(1.0, cap3 / (tr + cfg.eps_mass))[:, None, None]
 
     # Candidate attributes: dense take_along_axis over the CandidateSet when
-    # the shortlist ran (no per-round HBM gathers from the pool — the
-    # gathers, not the math, dominated the GN round cost on TPU), else the
-    # original pool gathers.
+    # the shortlist ran (no per-round gathers from the pool — the gathers,
+    # not the math, dominated the GN round cost), else the original pool
+    # gathers.
     if cands is not None:
         ci = assoc.cand_sl
         tk = lambda x: jnp.take_along_axis(
@@ -208,7 +208,7 @@ def primitive_pose_evidence(
         # ... and camera-dominant MAP slots (stale stored rays) don't either
         kw = kw * map_lfrac_g.astype(f)
     S = jnp.einsum("nk,nki,nj->ij", kw, map_dir, meas_dir)  # world x body scatter
-    R_star, D, V = linalg.rotation_from_scatter(S)  # eigh-based (f64 on TPU)
+    R_star, D, V = linalg.rotation_from_scatter(S)  # eigh-based, closed form
     # Laplace information of tr(S^T R) at R = R_star Exp(dtheta):
     # H = V (tr(D) I - D) V^T.
     H_diag = jnp.sum(D) - D

@@ -38,7 +38,7 @@ def domain_projection_psd(
     sym_delta = jnp.linalg.norm(M_sym - M, axis=(-2, -1))
     # 3x3 blocks (most call sites: evidence factors, IW suffstats) use the
     # analytic Jacobi kernel — XLA's general eigh expansion at every call
-    # site was the single largest TPU compile cost (see eigh_3x3).
+    # site was the single largest compile cost (see eigh_3x3).
     if M.shape[-1] == 3:
         eigvals, eigvecs = eigh_3x3(M_sym)
     else:
@@ -132,16 +132,15 @@ def safe_normalize(v: jnp.ndarray, eps: float = C.EPS_MASS) -> Tuple[jnp.ndarray
 def _jacobi_rot_3x3(A: jnp.ndarray, V: jnp.ndarray, p: int, q: int):
     """One batched Jacobi rotation zeroing A[..., p, q] (static p < q).
 
-    Fully algebraic (sqrt/divide only — no atan2/sin/cos, which are only
-    f32-accurate under TPU f64 emulation)."""
+    Fully algebraic (sqrt/divide only — no atan2/sin/cos)."""
     app = A[..., p, p]
     aqq = A[..., q, q]
     apq = A[..., p, q]
     # Overflow-free smaller-root rotation: t = sign(d) * 2 apq / (|d| + r)
     # with d = aqq - app, r = sqrt(d^2 + 4 apq^2). Entries are pre-normalized
     # to O(1) by eigh_3x3, so every intermediate is bounded ~[0, 4] — the
-    # classic tau = d/(2 apq) form overflows for tiny apq, and TPU's f64
-    # (a float32-pair emulation) turns that inf into NaN internally.
+    # classic tau = d/(2 apq) form overflows for tiny apq, and that inf
+    # turns into NaN in the rotation algebra.
     d = aqq - app
     r = jnp.sqrt(d * d + 4.0 * apq * apq)
     small = jnp.abs(apq) <= 1e-24 * (jnp.abs(app) + jnp.abs(aqq) + 1e-30)
@@ -161,11 +160,11 @@ def eigh_3x3(M: jnp.ndarray, n_sweeps: int = 6) -> Tuple[jnp.ndarray, jnp.ndarra
     """Batched symmetric 3x3 eigendecomposition via statically-unrolled
     cyclic Jacobi (ascending eigenvalues, like jnp.linalg.eigh).
 
-    XLA's general eigh lowers to a large per-instance subgraph (Jacobi/QDWH
-    machinery) that dominated TPU compile time at ~30 call sites; this
-    analytic kernel is ~18 fused VPU steps — compile-trivial, batch-friendly
-    (the surfel plane fit runs it on 8192 cells/scan), and f64-exact on TPU
-    (no transcendentals). 6 sweeps converge 3x3 to ~1e-15 relative."""
+    XLA's general eigh lowers to a large per-instance subgraph (or a solver
+    library call) at each of ~30 call sites, which dominated compile time;
+    this analytic kernel is ~18 fused elementwise steps — compile-trivial,
+    batch-friendly (the surfel plane fit runs it on 8192 cells/scan), and
+    free of transcendentals. 6 sweeps converge 3x3 to ~1e-15 relative."""
     A = sym(M)
     # Scale-normalize: Jacobi is scale-invariant, and O(1) entries keep the
     # rotation algebra inside the f32 exponent range (scatter matrices can
@@ -182,15 +181,15 @@ def eigh_3x3(M: jnp.ndarray, n_sweeps: int = 6) -> Tuple[jnp.ndarray, jnp.ndarra
         return A, V
 
     # fori_loop keeps the HLO small (compile cost) while unroll=3 halves the
-    # loop-boundary overhead — the body is ~18 fused VPU steps, so on TPU the
-    # while-loop boundary is a measurable fraction of each sweep.
+    # loop-boundary overhead — the body is ~18 fused elementwise steps, so
+    # the while-loop boundary is a measurable fraction of each sweep.
     A, V = jax.lax.fori_loop(0, n_sweeps, sweep, (A, V), unroll=3)
     lam = jnp.diagonal(A, axis1=-2, axis2=-1) * scale_safe[..., 0]
     # Rank-based 3-element ordering: argsort over a width-3 axis still
     # lowers to a sort HLO (a real dispatch at every eigh_3x3 call site);
     # the comparison-count rank fuses into the surrounding elementwise
     # kernel. Tie-break by index matches argsort's stable order.
-    # NaN caveat (ADVICE r4): every NaN eigenvalue compares false, gets
+    # NaN caveat: every NaN eigenvalue compares false, gets
     # rank 0, and `order` then duplicates indices — unlike argsort, which
     # places NaNs last. Acceptable: NaN eigenvalues mean the input matrix
     # was already poisoned, and the certificate layer (non-finite triggers)
@@ -220,8 +219,9 @@ def smooth_interval_project(x: jnp.ndarray, lo: jnp.ndarray, hi: float) -> jnp.n
 
 
 # ---------------------------------------------------------------------------
-# Closed-form batched 3x3 kernels (TPU: XLA's LU decomposition has no f64
-# path, and adjugate-form inverse/solve is pure fused VPU math anyway).
+# Closed-form batched 3x3 kernels: adjugate-form inverse/solve is pure
+# fused elementwise math, where a batched LU would be a library call per
+# call site.
 # ---------------------------------------------------------------------------
 
 
@@ -261,7 +261,7 @@ def inv3x3(M: jnp.ndarray, eps: float = 0.0) -> jnp.ndarray:
     I = a * e - b * d
     det = a * A + b * B + c * Cc
     # Relative, SIGN-PRESERVING det floor (entries are O(1) here); 1e-30
-    # also stays inside the f32 exponent range (TPU f64 = float32 pair).
+    # also stays inside the f32 exponent range (f32-belief mode).
     floor = jnp.maximum(jnp.asarray(1e-30, dtype=M.dtype),
                         (32.0 * jnp.finfo(M.dtype).eps) ** 3)
     sgn = jnp.where(det >= 0.0, 1.0, -1.0)
@@ -284,7 +284,7 @@ def solve3x3(M: jnp.ndarray, b: jnp.ndarray, eps: float = 0.0) -> jnp.ndarray:
 
 def rotation_from_scatter(S: jnp.ndarray):
     """Nearest proper rotation + singular spectrum of a 3x3 scatter matrix,
-    built from eigh(S^T S) (TPU has no f64 SVD/LU; eigh is supported).
+    built from eigh(S^T S) through the closed-form eigh_3x3 (no SVD/LU).
 
     Returns (R_star, D, V):
       R_star: (3, 3) proper rotation maximizing tr(S^T R)  (Kabsch mode)
@@ -302,7 +302,7 @@ def rotation_from_scatter(S: jnp.ndarray):
     detV = det3x3(V)
     V = V.at[..., :, 2].multiply(jnp.where(detV < 0, -1.0, 1.0))
     sigma = jnp.sqrt(jnp.maximum(lam, 0.0))
-    floor = jnp.maximum(1e-9 * sigma[..., :1], 1e-20)  # f32-exponent-safe (TPU f64 emulation)
+    floor = jnp.maximum(1e-9 * sigma[..., :1], 1e-20)  # f32-exponent-safe
     U_raw = S @ (V / jnp.maximum(sigma[..., None, :], floor))
     # Orthonormalize (rank-deficient S -> complete the frame right-handed).
     u1, _ = safe_normalize(U_raw[..., :, 0])

@@ -9,7 +9,7 @@ Semantics match the reference's sequential 512-step lax.scan
     v_{k+1}  = v_k + a_w_k dt_eff_k
     p_{k+1}  = p_k + v_k dt_eff_k + 1/2 a_w_k dt_eff_k^2
 
-TPU-first redesign: the only sequential dependency is the cumulative
+Array-program redesign: the only sequential dependency is the cumulative
 rotation product, which is ASSOCIATIVE — so we compute the exclusive
 cumulative product of the per-sample delta rotations with
 `jax.lax.associative_scan` (depth log2(M) instead of M sequential steps;

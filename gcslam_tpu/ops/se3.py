@@ -1,11 +1,11 @@
-"""Batched, branch-free SO(3)/SE(3) Lie ops for TPU.
+"""Batched, branch-free SO(3)/SE(3) Lie ops for one jitted device program.
 
 Semantics match the reference (fl_slam_poc/common/geometry/se3_jax.py:44-539):
 6D pose = [trans(3), rotvec(3)]; small-angle Taylor blends via jnp.where;
 deterministic near-pi handling through a softmax-weighted diagonal-axis
 extraction in so3_log (reference se3_jax.py:341-357).
 
-TPU-first differences from the reference:
+Differences from the reference:
   - every function broadcasts over arbitrary leading batch dims (no per-call
     `.reshape(-1)`, no forced f64 casts — dtype follows the input), so the
     whole pipeline can run in f32 for bulk data and f64 for belief algebra;

@@ -8,7 +8,7 @@ plane fit; Gaussian covariance = in-plane spread + perpendicular residual +
 sensor noise; WISHART REGULARIZATION IN PRECISION SPACE
 Lambda_reg = Lambda + (nu/psi) I; kappa = scale / sigma_perp clipped.
 
-HOW it computes is redesigned for TPU: instead of the reference's
+HOW it computes is redesigned for one device program: instead of the reference's
 sort + fixed-occupancy (32/cell) gather + per-cell loops, per-point weighted
 MOMENTS (w, w p, w p p^T, w t) scatter-add into per-cell accumulators in one
 pass (exact — no occupancy cap, strictly less approximation than the

@@ -1,7 +1,7 @@
 """Live visualization during a streaming run — the reference's live Rerun
 mode (backend/rerun_visualizer.py:34 spawns a viewer at node start and logs
 lidar points / trajectory / map as the run progresses), rebuilt for the
-offline TPU runtime.
+offline device runtime.
 
 Two backends, picked at construction:
 

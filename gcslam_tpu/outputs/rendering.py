@@ -1,5 +1,5 @@
 """Gaussian-splat renderer: EWA elliptical splatting with multi-lobe vMF
-view-dependent shading — ON the TPU.
+view-dependent shading, on the device.
 
 Functional parity with the reference's output-side renderer
 (backend/rendering.py:52-355):
@@ -12,10 +12,10 @@ Functional parity with the reference's output-side renderer
     (rendering.py:167-235);
   - depth-sorted alpha compositing.
 
-TPU-first design: instead of the reference's per-tile Python binning with
-fixed caps (rendering.py:252-340), the renderer evaluates a (pixels x
-primitives) weight tile in chunks — pure fused VPU work under jit — and
-composites front-to-back with a segmented scan. Good for the map sizes the
+Array-program design: instead of the reference's per-tile Python binning
+with fixed caps (rendering.py:252-340), the renderer evaluates a (pixels x
+primitives) weight tile in chunks — pure fused elementwise work under jit —
+and composites front-to-back with a segmented scan. Good for the map sizes the
 atlas holds (<= tens of thousands of splats).
 """
 
@@ -82,7 +82,7 @@ def render_splats(
     cam_pose: jnp.ndarray,  # (6,) camera->world [trans, rotvec]
     params: RenderParams = RenderParams(),
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """-> (rgb (H, W, 3), depth (H, W)). Differentiable, jittable, TPU-run."""
+    """-> (rgb (H, W, 3), depth (H, W)). Differentiable, jittable."""
     f32 = POINT_DTYPE
     H, W = params.height, params.width
     cx, cy = W / 2.0, H / 2.0
@@ -173,11 +173,9 @@ def render_splats(
     return jnp.clip(rgb, 0.0, 1.0), depth / cover
 
 
-def render_atlas(atlas, cam_pose, params: RenderParams = RenderParams(), max_splats: int = 4096,
-                 use_pallas: bool | None = None):
-    """Render the top-mass splats of a device-resident atlas. On TPU the
-    Pallas tiled rasterizer (outputs/rendering_pallas.py) is used — O(image +
-    splats) HBM traffic vs this module's scan compositor."""
+def render_atlas(atlas, cam_pose, params: RenderParams = RenderParams(), max_splats: int = 4096):
+    """Render the top-mass splats of a device-resident atlas through the scan
+    compositor (render_splats)."""
     T, M = atlas.weights.shape
     w = jnp.where(atlas.valid, atlas.weights, -jnp.inf).reshape(-1)
     k = min(max_splats, T * M)
@@ -188,14 +186,6 @@ def render_atlas(atlas, cam_pose, params: RenderParams = RenderParams(), max_spl
     th = atlas.thetas[ti, si].astype(jnp.float32)
     mu = jnp.einsum("pij,pj->pi", Sigma, th)
     masses = jnp.where(jnp.isfinite(w[idx]), atlas.weights.reshape(-1)[idx], 0.0)
-    if use_pallas is None:
-        use_pallas = jax.devices()[0].platform == "tpu"
-    if use_pallas:
-        from gcslam_tpu.outputs.rendering_pallas import render_splats_pallas
-
-        return render_splats_pallas(
-            mu, Sigma, atlas.etas[ti, si], atlas.rgb[ti, si], masses, cam_pose, params
-        )
     return render_splats(
         mu, Sigma, atlas.etas[ti, si], atlas.rgb[ti, si], masses, cam_pose, params
     )

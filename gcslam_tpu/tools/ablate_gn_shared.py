@@ -1,5 +1,5 @@
-"""map_gn_shared ablation at production budgets (VERDICT r3 weak #5 / next
-#8): shared-GN (one alignment chain per scan, hypothesis 0's predicted pose)
+"""map_gn_shared ablation at production budgets: shared-GN (one alignment
+chain per scan, hypothesis 0's predicted pose)
 vs per-hypothesis GN (reference backend_node.py:2036 semantics) on the
 HARD regime — circuit trajectory + dead-reckoned (integrated-drift)
 odometry, where the map must supply the correction authority.
@@ -39,12 +39,9 @@ def main(argv=None) -> dict:
         jax.config.update("jax_platforms", "cpu")
     import jax
 
-    cache_dir = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-        ".jax_cache")
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
+    from gcslam_tpu.utils.cache import enable_compile_cache
+
+    cache_dir = enable_compile_cache()
 
     import dataclasses
     import numpy as np
@@ -55,9 +52,6 @@ def main(argv=None) -> dict:
     from gcslam_tpu.models.scan_io import stack_scan_batches
     from gcslam_tpu.frontend.synthetic import generate, SyntheticConfig
     from gcslam_tpu.eval import ate_rpe
-    from gcslam_tpu.utils.profiling import force_sync_timing
-
-    force_sync_timing()
 
     # Hard regime: dead-reckoned odometry drifts without bound; ATE is then a
     # direct read of the map branch's correction authority.
@@ -68,14 +62,10 @@ def main(argv=None) -> dict:
     ))
     stacked = stack_scan_batches(run.batches)
 
-    # Per-hypothesis modes force the XLA Sinkhorn: the Pallas kernel under
-    # the K_HYP vmap crashed the TPU compile helper (HTTP 500, r4); the two
-    # backends are math-identical so the comparison is unaffected.
     modes = {
         "shared": {},  # production default: map_gn_shared=True
-        "per_hyp_gn": {"map_gn_shared": False, "sinkhorn_backend": "xla"},
-        "no_share": {"map_gn_shared": False, "map_share_extraction": False,
-                     "sinkhorn_backend": "xla"},
+        "per_hyp_gn": {"map_gn_shared": False},
+        "no_share": {"map_gn_shared": False, "map_share_extraction": False},
     }
     out = {"device": jax.devices()[0].platform, "scans": args.scans,
            "regime": "circuit + dead-reckoned odom (0.05 m/m, 0.02 rad/m)"}

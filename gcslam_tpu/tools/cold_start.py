@@ -1,6 +1,5 @@
 """Measure the WARMED cold start: time from process start to first pose in
-a FRESH process after tools/warm_cache populated the persistent cache
-(VERDICT r3 #9 / r4 #6).
+a FRESH process after tools/warm_cache populated the persistent cache.
 
 The reference pays ~30 s of first-scan JIT every boot
 (docs/PIPELINE_DESIGN_GAPS.md:209). Here a deploy warms the cache once
@@ -8,7 +7,7 @@ The reference pays ~30 s of first-scan JIT every boot
 executables instead of recompiling. This tool spawns the fresh process and
 records its milestones:
 
-  python -m gcslam_tpu.tools.cold_start [--json COLDSTART_r05.json]
+  python -m gcslam_tpu.tools.cold_start [--json results/coldstart.json]
          [--skip-warm] [--cpu]
 
 Milestones reported by the child (all seconds since process start):
@@ -32,15 +31,12 @@ _CHILD = r"""
 import json, os, time
 T0 = time.time()
 import jax
-repo = os.environ["GCSLAM_REPO"]
-jax.config.update("jax_compilation_cache_dir", os.path.join(repo, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
+from gcslam_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 if os.environ.get("GCSLAM_COLD_CPU") == "1":
     jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import gcslam_tpu
-from gcslam_tpu.utils.profiling import force_sync_timing
-force_sync_timing()
 from gcslam_tpu.models.config import PipelineConfig
 from gcslam_tpu.models import runner
 from gcslam_tpu.models.scan_step import init_state
@@ -65,7 +61,7 @@ print("CHILD_JSON " + json.dumps(m))
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--json", default="COLDSTART_r05.json")
+    ap.add_argument("--json", default="results/coldstart.json")
     ap.add_argument("--skip-warm", action="store_true",
                     help="assume tools/warm_cache already ran")
     ap.add_argument("--cpu", action="store_true")
@@ -84,7 +80,7 @@ def main(argv=None) -> int:
         report["warm_cache_s"] = round(time.time() - t0, 1)
         report["warm_cache_rc"] = r.returncode
 
-    env = dict(os.environ, GCSLAM_REPO=repo, GCSLAM_BELIEF_DTYPE="float32")
+    env = dict(os.environ, GCSLAM_BELIEF_DTYPE="float32")
     if args.cpu:
         env["GCSLAM_COLD_CPU"] = "1"
     t0 = time.time()
@@ -102,7 +98,9 @@ def main(argv=None) -> int:
         report["stderr_tail"] = r.stderr[-500:]
     out = json.dumps(report, indent=1)
     print(out)
-    with open(os.path.join(repo, args.json), "w") as f:
+    path = os.path.join(repo, args.json)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
         f.write(out + "\n")
     return 0 if r.returncode == 0 else 1
 

@@ -127,7 +127,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     import jax
 
-    jax.config.update("jax_platforms", "cpu")  # tiny probe; never pay TPU dispatch
+    jax.config.update("jax_platforms", "cpu")  # tiny probe; never pay device dispatch
     info = diagnose_gyro_composition()
     if args.json:
         print(json.dumps(info, indent=2))

@@ -1,9 +1,9 @@
 """Optimized-HLO census of the production scan step — the measurement side
-of the op-count campaign (VERDICT r4 #2).
+of the op-count campaign.
 
-The round-4 finding was that the remaining per-scan latency is BREADTH
-(~8k instructions, ~1.8k fusions averaging ~2 us each), not any hot kernel.
-This tool compiles the jitted scan step (or whole-bag replay) at production
+The earlier finding was that per-scan latency is BREADTH (thousands of
+instructions and ~1.8k small fusions in the replay while-body), not any hot
+kernel. This tool compiles the jitted scan step (or whole-bag replay) at production
 budgets, dumps the optimized HLO, and reports:
 
   - instruction counts by opcode (top-level, i.e. what the scheduler runs);
@@ -138,10 +138,9 @@ def main() -> None:
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     else:
-        cache = os.path.join(os.path.dirname(os.path.dirname(
-            os.path.dirname(os.path.abspath(__file__)))), ".jax_cache")
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
+        from gcslam_tpu.utils.cache import enable_compile_cache
+
+        enable_compile_cache()
 
     import gcslam_tpu  # noqa: F401
     from gcslam_tpu.models.config import PipelineConfig

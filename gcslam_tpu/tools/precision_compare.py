@@ -1,15 +1,13 @@
-"""f32-vs-f64 belief-precision comparison ON THE TPU (VERDICT r3 missing #2):
-the reference contract is float64 end-to-end (common/jax_init.py:24); this
-framework's production mode is f32-belief. This tool runs the SAME 50-scan
-production-budget replay under both dtypes on the real chip and reports the
-ATE + certificate-field deltas that back the precision policy.
+"""f32-vs-f64 belief-precision comparison on the device: the reference
+contract is float64 end-to-end (common/jax_init.py:24); this framework's
+production mode is f32-belief. This tool runs the SAME 50-scan
+production-budget replay under both dtypes and reports the ATE +
+certificate-field deltas that back the precision policy.
 
   python -m gcslam_tpu.tools.precision_compare [--scans 50] [--json PATH]
 
-The parent re-execs itself per dtype (BELIEF_DTYPE binds at package import).
-Expect the f64 compile to be VERY slow on TPU (f64 is software-emulated
-pair arithmetic; round-3 measured 824 s cold) — the persistent cache
-amortizes repeats.
+Each dtype runs in its own child process (BELIEF_DTYPE binds at package
+import); the parent never imports JAX, so one process holds the device.
 """
 
 from __future__ import annotations
@@ -25,12 +23,9 @@ import time
 def run_one(dtype: str, scans: int) -> dict:
     import jax
 
-    cache_dir = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-        ".jax_cache")
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
+    from gcslam_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
     import gcslam_tpu  # noqa: F401
@@ -40,10 +35,8 @@ def run_one(dtype: str, scans: int) -> dict:
     from gcslam_tpu.models.scan_io import stack_scan_batches
     from gcslam_tpu.frontend.synthetic import generate, SyntheticConfig
     from gcslam_tpu.eval import ate_rpe
-    from gcslam_tpu.utils.profiling import force_sync_timing
     from gcslam_tpu.utils.xla import BELIEF_DTYPE, jnp
 
-    force_sync_timing()
     assert str(jnp.dtype(BELIEF_DTYPE)) == dtype, (BELIEF_DTYPE, dtype)
 
     cfg = PipelineConfig()

@@ -1,9 +1,9 @@
 """Pre-compile the flagship pipeline programs into the persistent XLA cache
-(VERDICT r3 #9 — the cold-start story).
+(the cold-start story).
 
-A first-boot process pays the full remote-TPU compile for each program it
-dispatches (~90-130 s per config, BENCH_r03). The persistent compilation
-cache (`.jax_cache/`) already amortizes repeats, but only for programs that
+A first-boot process pays the full compile for each program it dispatches.
+The persistent compilation cache (gcslam_tpu/utils/cache.py) already
+amortizes repeats, but only for programs that
 have been compiled ONCE with byte-identical (shapes, config) keys. This tool
 is the deploy-time AOT step: it lowers+compiles every flagship program —
 per-scan streaming step, whole-bag replay, chunked streaming, and optionally
@@ -58,13 +58,9 @@ def main(argv=None) -> dict:
         jax.config.update("jax_platforms", "cpu")
     import jax
 
-    cache_dir = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-        ".jax_cache",
-    )
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
+    from gcslam_tpu.utils.cache import enable_compile_cache
+
+    cache_dir = enable_compile_cache()
 
     import gcslam_tpu  # noqa: F401
     from gcslam_tpu.models.config import PipelineConfig, config_from_file

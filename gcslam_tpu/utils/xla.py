@@ -1,19 +1,19 @@
 """Central JAX configuration (mirrors reference common/jax_init.py:1-35).
 
-Precision policy (TPU-first):
+Precision policy:
   - x64 is ENABLED globally (uint64 trigger masks, f64 available).
   - The 22D belief algebra, IW states, and small dense factor math run in
     `BELIEF_DTYPE`. Default float64 for parity with the reference (its
     contract requires f64 for the belief algebra). Set env
     ``GCSLAM_BELIEF_DTYPE=float32`` BEFORE importing the package to run the
-    belief algebra in f32: on TPU f64 is software-emulated, which multiplies
-    XLA compile time ~18x (measured: 518 s vs 29 s for the no-map core) and
-    slows every small-matrix op; the anchor-chart design keeps belief
-    increments near zero, which is precisely what makes f32 viable (see
-    tests/test_precision.py for the accuracy gate).
+    belief algebra in f32 — the production mode of bench.py and
+    chip_smoke.py, and the precision of the fused Sinkhorn kernel; the
+    anchor-chart design keeps belief increments near zero, which is
+    precisely what makes f32 viable (see tests/test_precision.py for the
+    accuracy gate).
   - Point-cloud hot paths (deskew, binning, association cost, map scatter)
-    explicitly use `POINT_DTYPE` (float32) so they map onto native TPU
-    vector/matrix units at full rate.
+    explicitly use `POINT_DTYPE` (float32): the bulk arrays, where the
+    device's f32 rate and bytes matter.
 
 All modules must import `jax`/`jnp` from here (or after importing the
 package) so x64 is enabled before any tracing happens.
@@ -24,11 +24,12 @@ import os
 import jax
 
 jax.config.update("jax_enable_x64", True)
-# TPU f32 matmuls default to bf16 passes (~1e-2 relative error) — fatal for
-# the belief algebra in f32-belief mode (roundoff-indefinite 22x22 factors
-# beyond any reasonable Cholesky ridge) and for point-association distances.
-# "highest" forces true-f32 accumulation; the small-matrix algebra is
-# latency-bound so the extra passes are free at this scale.
+# f32 matmuls may otherwise run at reduced precision (TF32 on the GPU's
+# tensor cores, ~3 decimal digits) — fatal for the belief algebra in
+# f32-belief mode (roundoff-indefinite 22x22 factors beyond any reasonable
+# Cholesky ridge) and for point-association distances. "highest" forces
+# true-f32 products; the small-matrix algebra is latency-bound, not
+# throughput-bound.
 jax.config.update("jax_default_matmul_precision", "highest")
 
 import jax.numpy as jnp  # noqa: E402

@@ -1,6 +1,6 @@
 // gcslam_native: native bag-decode path (the data-loader role the reference
 // fills with its C++ ROS nodes, src/camera_rgbd_node.cpp / src/visual_feature_node.cpp
-// plus rclpy deserialization). The TPU build replays bags offline; the hot
+// plus rclpy deserialization). This build replays bags offline; the hot
 // host-side loop is CDR decode + PointCloud2 field extraction for ~8k points
 // x thousands of scans, which this library does in one pass per message.
 //

@@ -1,4 +1,4 @@
-"""Golden-trajectory cross-validation of eval/ate_rpe.py (VERDICT r3 #6).
+"""Golden-trajectory cross-validation of eval/ate_rpe.py.
 
 The reference scores with evo (tools/evaluate_slam.py:220-380); our in-repo
 reimplementation must be provably convention-compatible — a wrong sign or

@@ -1,5 +1,5 @@
 """scatter_accumulate: the two execution strategies must agree (the sort
-path replaces TPU-serialized duplicate-index scatters; see ops/binned.py)."""
+path needs no duplicate-index updates; see ops/binned.py)."""
 
 import numpy as np
 

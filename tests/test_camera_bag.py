@@ -1,6 +1,6 @@
 """Real-bag RGB-D ingestion: synthesize a bag carrying CompressedImage RGB +
 16UC1 depth next to the LiDAR/IMU/odom streams and check the camera path is
-live end-to-end (VERDICT r1 missing #2: cam_valid.sum() > 0 from a bag, and
+live end-to-end (cam_valid.sum() > 0 from a bag, and
 the camera changes the trajectory)."""
 
 import io

@@ -6,8 +6,8 @@ fixtures are assembled byte-by-byte from the OMG CDR rules (primitives align
 to min(size, 8) relative to the body start; strings are u32 length +
 NUL-terminated bytes; no padding at encapsulation), independently of
 CdrWriter — if the codec's alignment model drifted, these would fail while
-the round-trip stayed green. (VERDICT r1 weak #8: validate against bytes the
-repo didn't write; no real bag exists in this environment.)
+the round-trip stayed green. (Validates against bytes the repo didn't write;
+no real bag ships with the repo.)
 """
 
 import struct

@@ -1,6 +1,6 @@
 """Unified-config wiring: the `frontend:` section drives BagConfig, the top
 level drives PipelineConfig, the alignment profile parses the reference's
-schema (VERDICT r1 missing #3 / weak #7)."""
+schema."""
 
 import os
 

@@ -1,6 +1,6 @@
 """The reference's contract-test families, exercised on the REAL scan_step
 (reference test/test_audit_invariants.py:1-463, test_budget_assertions.py:1-118,
-test_cert_schema.py:1-294 — VERDICT r1 missing #6/#7, weak #4):
+test_cert_schema.py:1-294):
 
   - certified non-finite handling (NaN in evidence => trigger + prior-only)
   - no-gates smoothness: extreme outliers produce CONTINUOUS output changes
@@ -33,7 +33,7 @@ def small_run():
 
 
 # ---------------------------------------------------------------------------
-# Certified non-finite evidence (ADVICE r1 medium: no silent NaN laundering)
+# Certified non-finite evidence
 # ---------------------------------------------------------------------------
 
 
@@ -260,7 +260,7 @@ def test_cert_channel_nan_rejected(small_run, monkeypatch):
     """A NaN arriving through the CERTIFICATE channel (not L/h) — e.g. an
     internal op emitting a non-finite ess/sentinel — must be rejected the
     same way: NonFiniteEvidence bit, beta=0, finite pose and tape, clean
-    recovery. (Observed on TPU: one NaN cert field -> beta=NaN -> state
+    recovery. (Observed: one NaN cert field -> beta=NaN -> state
     poisoned permanently.)"""
     from gcslam_tpu.ops import evidence_imu
 

@@ -1,5 +1,5 @@
-"""Dead-end classifier tests (VERDICT r3 #10; reference /gc/dead_end_status
-consumed by frontend/audit/wiring_auditor.py:37-265)."""
+"""Dead-end classifier tests (reference /gc/dead_end_status consumed by
+frontend/audit/wiring_auditor.py:37-265)."""
 
 import json
 

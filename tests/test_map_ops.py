@@ -152,7 +152,7 @@ def test_merge_reduce_merges_near_pair_only():
 
 
 # ---------------------------------------------------------------------------
-# Slab-refactor regression tests (VERDICT r4 #7): the 860525b refactor made
+# Slab-refactor regression tests: the 860525b refactor made
 # every map mutation operate on the (A, M) active-tile slab. (a) guards the
 # exact bug it fixed — scatter sentinels that wrap and clobber live slots on
 # unfilled budgets; (b) asserts the slab semantics: op results depend ONLY on

@@ -60,6 +60,8 @@ def test_manifest_contains_budgets():
     assert man["config.k_hyp"] == 4
     assert man["config.n_points_cap"] == 8192
     assert "backends" in man
+    # the Sinkhorn backend this process runs, not a fixed string
+    assert man["backends"]["sinkhorn_backend"] == "xla"  # CPU resolves "auto" to xla
     json.loads(manifest_json(cfg))  # valid JSON
 
 

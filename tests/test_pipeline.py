@@ -373,7 +373,7 @@ def test_integrated_odom_is_dead_reckoned():
 
 def test_hypothesis_sharing_modes_track(small_run):
     """The per-hypothesis map branch (reference semantics: extraction +
-    GN per hypothesis, backend/pipeline.py:789) and the two TPU sharing
+    GN per hypothesis, backend/pipeline.py:789) and the two cross-hypothesis sharing
     levels (map_share_extraction: shared surfels/shortlist;
     map_gn_shared: one GN chain from the predicted pose) must all track the
     trajectory — the sharing is a declared approximation over sub-voxel

@@ -1,13 +1,12 @@
 """f32-belief precision mode (GCSLAM_BELIEF_DTYPE=float32) — the gate on the
-production TPU configuration.
+production configuration (bench.py and chip_smoke.py run f32; it is also the
+precision of the fused Sinkhorn kernel).
 
-On TPU, f64 is software-emulated: measured 18x XLA compile-time multiplier
-(518 s vs 29 s for the no-map core) and slower small-matrix runtime. The
-anchor-chart design keeps belief increments near zero, which makes f32
+The anchor-chart design keeps belief increments near zero, which makes f32
 viable; absolute stamps stay f64 (TIME_DTYPE) so epoch-scale clocks
 (~1.7e9 s) keep microsecond resolution.
 
-Three gates (VERDICT r2 weak #6 asked for >= 3):
+Three gates:
   1. tracking parity vs f64 with epoch-scale stamps (map config);
   2. aggressive-motion stress (near-pi yaw excursions, 10x drift) stays
      finite with the certificate channel clean — no NonFiniteEvidence

@@ -1,6 +1,6 @@
 """Multi-run replay sweep sharded over an 8-device CPU mesh (parallel/sweep.py).
 
-Checks the TPU scale-out contract (SURVEY.md 2.10): N independent filter
+Checks the multi-device scale-out contract (SURVEY.md 2.10): N independent filter
 states advance under one jitted step with the run axis sharded over the
 mesh, results match the unsharded reference run, and different per-run
 inputs give different per-run trajectories.

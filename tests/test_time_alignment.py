@@ -1,6 +1,6 @@
 """compute_time_alignment: recover a known offset+drift from a synthesized
-bag and round-trip the profile through the frontend loader (VERDICT r1
-missing #5: the repo could apply a profile but not produce one)."""
+bag and round-trip the profile through the frontend loader (the repo can
+produce a profile, not only apply one)."""
 
 import numpy as np
 
